@@ -25,20 +25,22 @@ jax.config.update("jax_num_cpu_devices", 2)
 # backend client exists
 jax.config.update("jax_cpu_collectives_implementation", "gloo")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/fw_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
-from flashweave_tpu.parallel.distributed import initialize_from_env  # noqa: E402
+from flashweave.utils.cache import configure_compile_cache  # noqa: E402
+
+configure_compile_cache(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+from flashweave.parallel.distributed import initialize_from_env  # noqa: E402
 
 assert initialize_from_env(), "FLASHWEAVE_* env vars missing"
 
 import numpy as np  # noqa: E402
 
-from flashweave_tpu.ops import univariate as uv  # noqa: E402
-from flashweave_tpu.ops.condtests import CondTestEngine  # noqa: E402
-from flashweave_tpu.parallel.mesh import get_mesh  # noqa: E402
-from flashweave_tpu.utils.misc import get_levels, get_max_vals  # noqa: E402
+from flashweave.ops import univariate as uv  # noqa: E402
+from flashweave.ops.condtests import CondTestEngine  # noqa: E402
+from flashweave.parallel.mesh import get_mesh  # noqa: E402
+from flashweave.utils.misc import get_levels, get_max_vals  # noqa: E402
 
 
 def main():
@@ -83,7 +85,7 @@ def main():
     # -- full end-to-end learn_network across BOTH processes (the
     #    reference's scale-out contract: a complete inference with workers
     #    attached, reference test/learning.jl:176-237) -------------------
-    import flashweave_tpu as fw
+    import flashweave as fw
 
     tsv = "/root/reference/test/data/HMP_SRA_gut/HMP_SRA_gut_small.tsv"
     nets = {}

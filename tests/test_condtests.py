@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from flashweave_tpu import preprocessing as pp
-from flashweave_tpu.ops.condtests import CondTestEngine
-from flashweave_tpu.ops import univariate as uv
-from flashweave_tpu.utils.misc import get_levels, get_max_vals
+from flashweave import preprocessing as pp
+from flashweave.ops.condtests import CondTestEngine
+from flashweave.ops import univariate as uv
+from flashweave.utils.misc import get_levels, get_max_vals
 
 from conftest import requires_reference_data
 from test_univariate import load_tests_expected
@@ -98,7 +98,7 @@ def test_mi_cond_batch_consistency(norm_data):
 @requires_reference_data
 def test_masked_cor_chunked_matches_direct(norm_data, monkeypatch):
     """Row-chunked scan path equals the direct path."""
-    import flashweave_tpu.ops.condtests as mod
+    import flashweave.ops.condtests as mod
 
     data = norm_data["fz_nz"][:300]  # non-multiple of the forced chunk
     pairs = [(0, 1), (5, 9)]
@@ -189,8 +189,8 @@ def test_device_digest_matches_host_digest():
     same decisions, same weakest weights.  Synthetic correlated groups so
     real conditional mega-batches flow (the HMP mi_nz table dispatches
     none)."""
-    import flashweave_tpu.ops.condtests as ct
-    from flashweave_tpu.learning.lgl import LGL
+    import flashweave.ops.condtests as ct
+    from flashweave.learning.lgl import LGL
 
     rng = np.random.default_rng(2)
     n, p = 256, 120
@@ -230,14 +230,14 @@ def test_device_digest_matches_host_digest():
 
 
 def test_packed_histogram_matches_einsum():
-    """The TPU byte-packed cell histogram (generic + reduced nz-uniform
-    variants, exercised on CPU via FORCE_TPU_PATH) must produce bit-exact
-    integer counts vs the einsum formulation -- including the adversarial
-    all-rows-one-cell case where a 128-row chunk's byte lane hits its
-    maximum count of 128 (top-bit carry survives the arithmetic shift)."""
+    """The byte-packed cell histogram (generic + reduced nz-uniform
+    variants) must produce bit-exact integer counts vs a numpy one-hot
+    einsum of the same tables -- including the adversarial all-rows-one-cell
+    case where a 128-row chunk's byte lane hits its maximum count of 128
+    (top-bit carry survives the arithmetic shift)."""
     import jax.numpy as jnp
 
-    from flashweave_tpu.ops import contingency as cg
+    from flashweave.ops import contingency as cg
 
     rng = np.random.default_rng(3)
     n, p, L, max_k, S, B = 300, 40, 3, 3, 27, 64
@@ -251,32 +251,33 @@ def test_packed_histogram_matches_einsum():
     Zs = rng.integers(0, p, (B, max_k)).astype(np.int32)
     Zs[0] = 7
     kvec = rng.integers(0, max_k + 1, B).astype(np.int32)
-    x = np.take(data, X, axis=1)
-    y = np.take(data, Y, axis=1)
-    mask_full = jnp.ones((n, B), bool)
-    mask_nz = jnp.asarray((x != 0) & (y != 0))
+    x = np.take(data, X, axis=1).astype(int)
+    y = np.take(data, Y, axis=1).astype(int)
+    z = sum(np.where(j < kvec[None, :],
+                     np.take(data, Zs[:, j], axis=1).astype(int) * L ** j, 0)
+            for j in range(max_k))
+    onehot = lambda v, k: (v[..., None] == np.arange(k)).astype(np.int64)
+    mask_full = np.ones((n, B), bool)
+    mask_nz = (x != 0) & (y != 0)
     args = (jnp.asarray(data), jnp.asarray(X), jnp.asarray(Y),
             jnp.asarray(Zs), jnp.asarray(kvec))
 
     for mask, reduced in ((mask_full, False), (mask_nz, False),
                           (mask_nz, True)):
-        ref, _ = cg.cond_ctab_batch(*args, mask, B, max_k, L, S,
+        ref = np.einsum("nba,nbc,nbs->bacs", onehot(x, L) * mask[..., None],
+                        onehot(y, L), onehot(z, S))
+        if reduced:
+            ref = ref[:, 1:, 1:, :]
+        got, _ = cg.cond_ctab_batch(*args, jnp.asarray(mask), B, max_k, L, S,
                                     reduced=reduced)
-        old = cg.FORCE_TPU_PATH
-        cg.FORCE_TPU_PATH = True
-        try:
-            got, _ = cg.cond_ctab_batch(*args, mask, B, max_k, L, S,
-                                        reduced=reduced)
-        finally:
-            cg.FORCE_TPU_PATH = old
-        np.testing.assert_array_equal(np.asarray(ref), np.asarray(got),
+        np.testing.assert_array_equal(ref, np.asarray(got),
                                       err_msg=f"reduced={reduced}")
 
 
 def test_nz_uniform_kernel_matches_generic():
     """nzu=True (sliced-cell histogram, zero offsets) must reproduce the
     generic nz kernel bit-for-bit when every variable has 3 levels."""
-    from flashweave_tpu.ops import condtests as ct
+    from flashweave.ops import condtests as ct
 
     rng = np.random.default_rng(11)
     n, p, max_k = 250, 30, 3
@@ -307,7 +308,7 @@ def test_fz_onfly_cor_matches_materialized(norm_data, monkeypatch):
     MemoryError advice suggested an unimplemented option).  The on-fly path
     must reproduce the materialized path to matmul reduction-order
     precision, and run end-to-end through LGL."""
-    from flashweave_tpu.ops import condtests as ct
+    from flashweave.ops import condtests as ct
 
     data = norm_data["fz"]
     dev = CondTestEngine(data, "fz", 3, hps=5, n_obs_min=20)
@@ -329,7 +330,7 @@ def test_fz_onfly_cor_matches_materialized(norm_data, monkeypatch):
 
     # end-to-end: the full LGL fz network through the on-fly engine equals
     # the materialized-path network
-    from flashweave_tpu.learning.lgl import LGL
+    from flashweave.learning.lgl import LGL
 
     kw = dict(test_name="fz", max_k=3, parallel="single_il", time_limit=0.0,
               verbose=False, n_obs_min=20)
@@ -345,8 +346,8 @@ def test_cont_device_digest_matches_host(norm_data, monkeypatch):
     """The continuous ON-DEVICE window digest (fz_nz masked / on-the-fly fz
     plain correlations + pcor DP + decision digest, round-5) must reproduce
     the float64 host-digest networks exactly under x64."""
-    from flashweave_tpu.learning.lgl import LGL
-    from flashweave_tpu.ops import condtests as ct
+    from flashweave.learning.lgl import LGL
+    from flashweave.ops import condtests as ct
 
     def edges(g):
         return sorted((u, v, w) for u, v, w in g.edges())
@@ -376,3 +377,38 @@ def test_cont_device_digest_matches_host(norm_data, monkeypatch):
     assert [(u, v) for u, v, _ in e_m] == [(u, v) for u, v, _ in e_o]
     np.testing.assert_allclose([w for _, _, w in e_m],
                                [w for _, _, w in e_o], rtol=1e-7)
+
+
+def test_device_digest_weakest_pvalue_does_not_underflow(monkeypatch):
+    """On int8 device data the digest statistics are float32; the weakest
+    p-value must still reach the host at float64 range (it ships as a log
+    p-value), or cross-window weakest comparisons see ties at 0."""
+    import jax.numpy as jnp
+
+    from flashweave.learning.scheduler import _scan_digest
+    from flashweave.ops import condtests as ct
+
+    monkeypatch.setattr(ct, "FORCE_DEV_DIGEST", True)
+    rng = np.random.default_rng(4)
+    n, p = 512, 8
+    x = rng.integers(0, 2, n)
+    data = np.stack([x] * 4 + [rng.integers(0, 2, n) for _ in range(4)],
+                    axis=1).astype(np.float64)
+    lv, mx = get_levels(data.astype(int)), get_max_vals(data.astype(int))
+    eng = ct.CondTestEngine(data, "mi", 1, levels=lv, max_vals=mx, hps=5)
+    eng.data_j = jnp.asarray(data.astype(np.int8))     # float32 statistics
+    X = np.zeros(3, np.int32)
+    Y = np.ones(3, np.int32)
+    Zs = np.array([[4], [5], [6]], np.int32)
+    kv = np.ones(3, np.int32)
+    counts = np.array([3])
+    ex, ws, wp = eng.mi_tests_finish_digest(
+        eng.mi_tests_begin_digest(X, Y, Zs, kv, counts, 0.01))
+    stat, df, n_obs, suff = eng.mi_tests_finish_lazy(
+        eng.mi_tests_begin(X, Y, Zs, kv))
+    ex_h, w_h, maxp_h, _ = _scan_digest(stat, df, n_obs, suff,
+                                        np.array([0]), counts, 0.01)
+    assert ex[0] == ex_h[0] == -1
+    assert 0.0 < maxp_h[0] < 1e-60
+    np.testing.assert_allclose(wp[0], maxp_h[0], rtol=1e-3)
+    np.testing.assert_allclose(ws[0], stat[w_h[0]], rtol=1e-6)

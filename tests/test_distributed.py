@@ -32,9 +32,9 @@ def _free_port():
 def _reference_results():
     """Single-process (8-device virtual mesh of THIS process) expectation,
     same data/batches as the worker."""
-    from flashweave_tpu.ops import univariate as uv
-    from flashweave_tpu.ops.condtests import CondTestEngine
-    from flashweave_tpu.utils.misc import get_levels, get_max_vals
+    from flashweave.ops import univariate as uv
+    from flashweave.ops.condtests import CondTestEngine
+    from flashweave.utils.misc import get_levels, get_max_vals
 
     rng = np.random.default_rng(3)
     n, p = 128, 96
@@ -119,9 +119,9 @@ def test_two_process_parity(tmp_path):
             r0[k], r1[k],
             err_msg=f"{k}: networks differ across processes")
 
-    import flashweave_tpu as fw
-    from flashweave_tpu.types import Graph
-    from flashweave_tpu.utils.testing import compare_graph_results
+    import flashweave as fw
+    from flashweave.types import Graph
+    from flashweave.utils.testing import compare_graph_results
 
     for k, name in (("net_mi_nz", "mi_nz"), ("net_fz_nz", "fz_nz"),
                     ("net_mi", "mi"), ("net_fz", "fz")):

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from flashweave_tpu import io as fio
-from flashweave_tpu.types import FWResult, HitonState, LGLResult, TestResult
+from flashweave import io as fio
+from flashweave.types import FWResult, HitonState, LGLResult, TestResult
 
 from conftest import reference_data_path, requires_reference_data
 
@@ -271,7 +271,7 @@ def test_biom_sparse_loading(tiny_expected, data_suff):
 
 
 # ---------------------------------------------------------------------------
-# native fast delimited parser (flashweave_tpu/native/fast_dlm.cpp)
+# native fast delimited parser (flashweave/native/fast_dlm.cpp)
 # ---------------------------------------------------------------------------
 
 def _slow_load_dlm(path, **kw):
@@ -310,7 +310,7 @@ def test_fast_dlm_matches_python_path(tmp_path, name, text):
 def test_fast_dlm_used_for_numeric_tables(tmp_path):
     """On a clean numeric table the fast path really is taken (guards
     against silently always falling back)."""
-    from flashweave_tpu import native
+    from flashweave import native
 
     if native.get_lib() is None:
         pytest.skip("no native toolchain")
@@ -335,7 +335,7 @@ def test_fast_dlm_fallback_on_ragged_rows(tmp_path):
 
 def test_load_dlm_without_native_lib(tmp_path, monkeypatch):
     """If the native library cannot be built, loading still works."""
-    from flashweave_tpu import native
+    from flashweave import native
 
     monkeypatch.setattr(native, "get_lib", lambda: None)
     path = _write(tmp_path, "t.tsv", "a\tb\n1\t2\n3\t4\n")

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from flashweave_tpu.preprocessing import convert_to_target_prec
-from flashweave_tpu.types import FWResult, Graph, HitonState, LGLResult
-from flashweave_tpu.utils.misc import (
+from flashweave.preprocessing import convert_to_target_prec
+from flashweave.types import FWResult, Graph, HitonState, LGLResult
+from flashweave.utils.misc import (
     make_symmetric_graph,
     make_weights,
     maxweight,
@@ -91,7 +91,7 @@ def test_graph_adjacency_exports():
 def test_stage_timing_and_profiler_trace(tmp_path):
     """Per-stage timings are recorded in the result parameters and an
     optional jax.profiler trace is captured (SURVEY §5 aux subsystems)."""
-    from flashweave_tpu import learn_network
+    from flashweave import learn_network
 
     rng = np.random.default_rng(3)
     data = rng.integers(0, 50, (80, 12)).astype(np.float64)

@@ -4,12 +4,12 @@ import numpy as np
 import pytest
 import jax
 
-from flashweave_tpu.parallel.mesh import get_mesh
-from flashweave_tpu.ops import univariate as uv
-from flashweave_tpu.ops.condtests import CondTestEngine
-from flashweave_tpu.learning.lgl import LGL
-from flashweave_tpu.utils.misc import get_levels, get_max_vals
-from flashweave_tpu.utils.testing import compare_graph_results
+from flashweave.parallel.mesh import get_mesh
+from flashweave.ops import univariate as uv
+from flashweave.ops.condtests import CondTestEngine
+from flashweave.learning.lgl import LGL
+from flashweave.utils.misc import get_levels, get_max_vals
+from flashweave.utils.testing import compare_graph_results
 
 from conftest import requires_reference_data
 
@@ -70,7 +70,7 @@ def test_cond_mesh_matches_single(synth):
 @needs_mesh
 @requires_reference_data
 def test_lgl_multi_il_mesh_matches_unmeshed(hmp_small):
-    from flashweave_tpu import preprocessing as pp
+    from flashweave import preprocessing as pp
 
     d = pp.preprocess_data_default(hmp_small, "fz_nz", verbose=False, prec=64).data
     mesh = get_mesh(8)
@@ -100,8 +100,8 @@ def _nbr_dicts_close(a, b, rtol_stat=1e-5, rtol_pval=1e-3):
 def test_univar_mesh_extract_matches_host(test_name, force_pallas, p):
     """The mesh fast path (shard_map Y-slab sharding + device log-space BH +
     significant-pair extraction) must reproduce the single-device host-f64
-    path's significant set and values -- with and without the Pallas kernels
-    (interpret mode)."""
+    path's significant set and values -- on the parity path and forced onto
+    the accelerator path (int8 MI route)."""
     mesh = get_mesh(8)
     rng = np.random.default_rng(5)
     n = 300
@@ -116,7 +116,7 @@ def test_univar_mesh_extract_matches_host(test_name, force_pallas, p):
     data[:, 3] = np.where(rng.random(n) < 0.7, data[:, 2], data[:, 3])
     lv = mx = None
     if test_name.startswith("mi"):
-        from flashweave_tpu.utils.misc import get_levels, get_max_vals
+        from flashweave.utils.misc import get_levels, get_max_vals
 
         lv, mx = get_levels(data.astype(int)), get_max_vals(data.astype(int))
     host = uv.pw_univar_neighbors(data, test_name, levels=lv, max_vals=mx)
@@ -197,7 +197,7 @@ def test_scaling_harness(synth):
     """The scaling harness runs the sharded paths at every mesh size and
     reports identical significant sets (the CPU mesh validates the SPMD
     expression; wall-clock efficiency is only meaningful on real chips)."""
-    from flashweave_tpu.parallel.scaling import (
+    from flashweave.parallel.scaling import (
         cond_scaling, report, univar_scaling,
     )
 

@@ -6,8 +6,8 @@ import warnings
 import numpy as np
 import pytest
 
-from flashweave_tpu import preprocessing as pp
-from flashweave_tpu.utils.misc import get_levels
+from flashweave import preprocessing as pp
+from flashweave.utils.misc import get_levels
 
 from conftest import reference_data_path, requires_reference_data
 
@@ -190,7 +190,7 @@ class TestSparseIngestion:
     def test_sparse_matches_dense(self, test_name):
         from scipy import sparse as sp
 
-        from flashweave_tpu.preprocessing import normalize_data
+        from flashweave.preprocessing import normalize_data
 
         X = self._table()
         dense = normalize_data(X, test_name=test_name, verbose=False, prec=64)
@@ -208,7 +208,7 @@ class TestSparseIngestion:
     def test_sparse_norm_modes(self, norm_mode):
         from scipy import sparse as sp
 
-        from flashweave_tpu.preprocessing import normalize_data
+        from flashweave.preprocessing import normalize_data
 
         X = self._table(seed=3)
         dense = normalize_data(X, norm_mode=norm_mode, verbose=False, prec=64)
@@ -220,7 +220,7 @@ class TestSparseIngestion:
     def test_sparse_adaptive_clr_densifies_with_warning(self):
         from scipy import sparse as sp
 
-        from flashweave_tpu.preprocessing import normalize_data
+        from flashweave.preprocessing import normalize_data
 
         X = self._table(seed=4)
         with pytest.warns(UserWarning, match="densifying"):
@@ -232,8 +232,8 @@ class TestSparseIngestion:
     def test_learn_network_sparse_input(self):
         from scipy import sparse as sp
 
-        from flashweave_tpu import learn_network
-        from flashweave_tpu.utils.testing import compare_graph_results
+        from flashweave import learn_network
+        from flashweave.utils.testing import compare_graph_results
 
         X = self._table(n=200, p=30, seed=5)
         g1 = learn_network(X, sensitive=False, heterogeneous=True, max_k=1,
@@ -247,7 +247,7 @@ class TestSparseIngestion:
     def test_sparse_with_meta(self):
         from scipy import sparse as sp
 
-        from flashweave_tpu.preprocessing import normalize_data
+        from flashweave.preprocessing import normalize_data
 
         X = self._table(seed=6)
         meta_mask = np.zeros(X.shape[1], dtype=bool)
@@ -267,7 +267,7 @@ def test_prec_128_casts_to_64_with_warning():
     own Float128 eval fails in base Julia, src/misc.jl:47-52)."""
     import warnings
 
-    from flashweave_tpu.preprocessing import _target_dtype
+    from flashweave.preprocessing import _target_dtype
 
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")

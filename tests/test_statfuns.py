@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from flashweave_tpu.ops import statfuns as sf
+from flashweave.ops import statfuns as sf
 
 
 def _ctab3(arr2d):
@@ -172,3 +172,15 @@ class TestPcor:
         # .5 boundaries; the reference itself tolerates atol=1e-4 here
         # (reference: test/statfuns.jl:31).
         np.testing.assert_allclose(got_np, np.asarray(got_j), atol=1e-4)
+
+
+def test_mi_pval_smalldf_matches_gammaincc():
+    rng = np.random.default_rng(1)
+    mi = rng.exponential(0.02, 5000)
+    n_obs = rng.integers(10, 9000, 5000)
+    df = rng.integers(0, 9, 5000)
+    ref = sf.mi_pval(mi, df, n_obs, xp=np)
+    got = np.asarray(sf.mi_pval_smalldf(
+        jnp.asarray(mi), jnp.asarray(df), jnp.asarray(n_obs), 8, xp=jnp
+    ))
+    np.testing.assert_allclose(got, ref, rtol=5e-12, atol=1e-300)

@@ -4,8 +4,8 @@ test results (reference: test/tests.jl, fixtures test/data/tests_expected.tsv)."
 import numpy as np
 import pytest
 
-from flashweave_tpu import preprocessing as pp
-from flashweave_tpu.ops import univariate as uv
+from flashweave import preprocessing as pp
+from flashweave.ops import univariate as uv
 
 from conftest import reference_data_path, requires_reference_data
 
@@ -85,7 +85,7 @@ def test_fdr_neighbor_dicts(norm_data):
 @pytest.mark.parametrize("test_name", ["mi", "mi_nz", "fz", "fz_nz"])
 @pytest.mark.parametrize("FDR", [True, False])
 def test_device_extract_matches_host(norm_data, test_name, FDR):
-    """The TPU fast path (fused Pallas kernels + log-space device BH +
+    """The accelerator path (int8 MI route + log-space device BH +
     significant-pair extraction) must produce the same neighbor sets and
     equivalent (stat, adjusted pval) entries as the host float64 pipeline."""
     data = norm_data[test_name]
@@ -107,7 +107,7 @@ def test_device_extract_matches_host(norm_data, test_name, FDR):
 
 
 def test_condensed_pair_inversion():
-    from flashweave_tpu.ops.univariate import condensed_pos, condensed_to_pair
+    from flashweave.ops.univariate import condensed_pos, condensed_to_pair
 
     for p in [2, 3, 17, 1000, 20000]:
         n_pairs = p * (p - 1) // 2
@@ -152,8 +152,8 @@ def test_scan_extract_multiblock_matches_host(test_name, FDR):
         assert set(host[X]) == set(dev[X]), (X, len(host[X]), len(dev[X]))
         for Y, (stat, pval) in host[X].items():
             dstat, dpval = dev[X][Y]
-            # the Pallas fz_nz kernel accumulates moments in f32 (the TPU
-            # production dtype), so stats carry f32-level noise
+            # the device extraction's closed-form log p-values and sums
+            # in another order carry evaluation-order noise
             assert np.isclose(dstat, stat, rtol=1e-4, atol=1e-6)
             assert np.isclose(dpval, pval, rtol=5e-3, atol=1e-300)
 
@@ -164,7 +164,7 @@ def test_select_bin_bh_safety_property():
     edge (the safety invariant the two-pass extraction rests on), and the
     extracted superset must stay tight (within the one-bin overshoot the
     geometric edge spacing implies)."""
-    from flashweave_tpu.ops import statfuns as sf
+    from flashweave.ops import statfuns as sf
 
     rng = np.random.default_rng(11)
     alpha = 0.05
@@ -194,64 +194,28 @@ def test_select_bin_bh_safety_property():
             assert surplus <= max(bin_width_pairs, 64), (trial, surplus)
 
 
-def test_f16_upload_parity():
-    """The float16 continuous-table upload (half the transfer at scale) must
-    reproduce the f32-upload significant set and near-identical statistics
-    on data with clear significance margins."""
-    from flashweave_tpu.ops import univariate as uv
-
-    rng = np.random.default_rng(21)
-    n, p = 400, 60
-    data = np.where(rng.random((n, p)) < 0.3, 0.0, rng.standard_normal((n, p)))
-    data[:, 1] = data[:, 0] + 0.2 * rng.standard_normal(n)
-    data[:, 3] = np.where(rng.random(n) < 0.8, data[:, 2], data[:, 3])
-    for test_name in ("fz", "fz_nz"):
-        old_p, old_f = uv.FORCE_PALLAS, uv.FORCE_F16_UPLOAD
-        uv.FORCE_PALLAS = True     # device-extract path off-TPU
-        try:
-            base = uv.pw_univar_neighbors(data, test_name, n_obs_min=20)
-            uv.FORCE_F16_UPLOAD = True
-            got = uv.pw_univar_neighbors(data, test_name, n_obs_min=20)
-        finally:
-            uv.FORCE_PALLAS, uv.FORCE_F16_UPLOAD = old_p, old_f
-        assert set(base) == set(got)
-        for T in base:
-            assert set(base[T]) == set(got[T]), (test_name, T)
-            for nbr, (st, _) in base[T].items():
-                assert np.isclose(st, got[T][nbr][0], rtol=5e-3, atol=5e-3)
+_MI_ROUTE_CASES = [(nz, L, ragged)
+                   for nz in ("plain", "nz", "nz-uniform")
+                   for L in (2, 3, 4)
+                   for ragged in (False, True)
+                   if nz != "nz-uniform" or L == 3]
 
 
-def test_put_continuous_f16_overflow_falls_back():
-    from flashweave_tpu.ops import univariate as uv
-    import jax.numpy as jnp
+@pytest.mark.parametrize(
+    "nz, L, ragged", _MI_ROUTE_CASES,
+    ids=[f"{nz}-L{L}-{'ragged' if r else 'aligned'}"
+         for nz, L, r in _MI_ROUTE_CASES])
+def test_mi_int8_route_matches_float64(nz, L, ragged):
+    """The accelerator path's int8 univariate MI route (indicator planes,
+    one int8 dot, margin reconstruction + epilogue) against the float64
+    numpy one-hot reference: counts, df and power flags bit-equal."""
+    from flashweave.utils.devcheck import check_mi_univariate
 
-    old = uv.FORCE_F16_UPLOAD
-    uv.FORCE_F16_UPLOAD = True
-    try:
-        big = np.array([[1e6, 2.0], [3.0, 4.0]])
-        x = uv.put_continuous(big)
-        assert bool(jnp.isfinite(x).all())     # fell back to full precision
-        small = np.array([[1.5, 2.0], [3.0, 4.0]])
-        y = uv.put_continuous(small)
-        assert y.dtype == jnp.float32
-    finally:
-        uv.FORCE_F16_UPLOAD = old
+    flag = {"plain": 0, "nz": 1, "nz-uniform": 2}[nz]
+    if ragged:
+        kw = dict(n=301, p=203, tile=37, y_len=83)
+    else:
+        kw = dict(n=256, p=256, tile=64, y_len=128)
+    res = check_mi_univariate(L=L, nz=flag, n_blocks=2, seed=L, **kw)
+    assert res["blocks"] == 2
 
-
-def test_put_continuous_f16_tiny_nonzero_falls_back():
-    """Nonzero magnitudes below the f16 normal range would flush to zero and
-    change the fz_nz nonzero-row masks (a discrete decision), so they force
-    the full-precision upload."""
-    from flashweave_tpu.ops import univariate as uv
-    import jax.numpy as jnp
-
-    old = uv.FORCE_F16_UPLOAD
-    uv.FORCE_F16_UPLOAD = True
-    try:
-        tiny = np.array([[1e-7, 2.0], [3.0, 4.0]])
-        x = uv.put_continuous(tiny)
-        assert float(jnp.min(jnp.abs(x))) > 0.0          # fell back, kept
-        ok = np.array([[1.5, 2.0], [3.0, 4.0]])
-        assert uv.put_continuous(ok).dtype == jnp.float32
-    finally:
-        uv.FORCE_F16_UPLOAD = old
